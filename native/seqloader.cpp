@@ -2,7 +2,7 @@
 // streamer for VO replay (SURVEY.md C17 / section 2.3).
 //
 // The reference's data path crosses an OpenCV C++ boundary per frame
-// (cv2.imread); this is the TPU-host equivalent: a C++ runtime component that
+// (cv2.imread); this is the equivalent here: a C++ runtime component that
 // keeps the device fed. Frames live in a single ".sosq" bundle (header +
 // offset table + per-frame zlib streams); a worker thread pool decompresses
 // ahead of the consumer into a ring of slots, so Python's per-frame cost is

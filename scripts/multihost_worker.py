@@ -5,8 +5,8 @@ Each process calls the REAL multi-host bootstrap
 (`sosvo.dist.mesh.init_multihost` -> `jax.distributed.initialize`), after
 which `jax.devices()` spans both processes and the landmark-sharded Schur BA
 (`sosvo.dist.ba_dist.ba_solve_sharded`) runs over a GLOBAL "model" mesh --
-its psums cross the process boundary (Gloo on CPU; ICI/DCN on a TPU slice,
-same code). Process 0 also solves single-device and asserts parity.
+its psums cross the process boundary (Gloo on CPU; NCCL across GPUs, same
+code). Process 0 also solves single-device and asserts parity.
 
 Usage: multihost_worker.py <process_id> <num_processes> <port>
 Env:   XLA_FLAGS=--xla_force_host_platform_device_count=N  (local devices)
@@ -23,6 +23,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+from sosvo.utils.runtime import setup_compilation_cache  # noqa: E402
+
+setup_compilation_cache()
 
 
 def main() -> int:
@@ -64,7 +68,7 @@ def main() -> int:
     win = BAWindow(X=X0, landmarks=lms0, rays=rays,
                    weights=jnp.ones((W, L, 2), jnp.float32), viewpoints=vps)
 
-    res = ba_solve_sharded(mesh, win, iters=3, use_pallas=False)
+    res = ba_solve_sharded(mesh, win, iters=3)
     X_sharded = jax.device_get(res.X)          # replicated output
     cost, cost0 = float(res.cost), float(res.cost0)
 

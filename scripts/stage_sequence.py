@@ -3,8 +3,8 @@
 
 The reference ingests rig captures directly through OpenCV (SURVEY.md C17);
 this build's product path reads pre-staged device-ready tensors (.npz
-bundles or .sosq streams -- per-frame image decode on the TPU host is
-bandwidth wasted, SURVEY.md section 2.3). This HOST-SIDE tool is the bridge:
+bundles or .sosq streams -- decoding image files per frame inside the
+replay loop would stall the device, SURVEY.md section 2.3). This HOST-SIDE tool is the bridge:
 
     python scripts/stage_sequence.py CAPTURE_DIR out.npz \
         [--gt groundtruth.txt] [--sosq out.sosq] [--size 768]
@@ -19,7 +19,7 @@ bandwidth wasted, SURVEY.md section 2.3). This HOST-SIDE tool is the bridge:
     requires already-square frames).
 
 PIL/OpenCV are allowed here -- this is tooling that runs once per dataset on
-the host, never on the TPU compute path.
+the host, never on the device compute path.
 
 Replay the result:
     python -m sosvo.cli --config configs/c2_chip_ba.json \

@@ -8,10 +8,6 @@ _sys.path.insert(0, str(_Path(__file__).resolve().parents[1]))
 import json
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/sosvo_tpu_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 
 from sosvo.eval.ate import ate_rmse
@@ -20,6 +16,7 @@ from sosvo.sensor.rig import default_rig
 from sosvo.synth.render import RoomScene, render_sequence
 from sosvo.synth.scene import make_trajectory
 from sosvo.utils.config import load_pipeline_config
+from sosvo.utils.runtime import setup_compilation_cache
 from sosvo.vo.ba_pipeline import init_ba_state, run_replay_ba
 from sosvo.vo.loop_closure import pgo_refine_trajectory
 
@@ -27,6 +24,7 @@ F = 200
 
 
 def main():
+    setup_compilation_cache()
     cfg = load_pipeline_config("configs/c3_host_pgo.json")
     rig = default_rig()
     room = RoomScene(radius=3.0, floor_z=-1.2, ceiling_z=1.6, texture_scale=2.0)

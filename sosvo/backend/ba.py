@@ -1,6 +1,6 @@
 """Windowed bundle adjustment: Levenberg-Marquardt with Schur complement.
 
-TPU-native replacement for the reference's nonlinear least-squares machinery
+JAX replacement for the reference's nonlinear least-squares machinery
 (SURVEY.md C13: scipy `least_squares` in the calibration path; the online VO
 loop is frame-to-frame only [P1] -- windowed BA is mandated by the north star
 BASELINE.json:5/8 "windowed bundle adjustment ... distributed BA via
@@ -20,8 +20,7 @@ Design (idiomatic JAX, fixed shapes, SURVEY.md section 3.4):
         S = H_cc - H_cl H_ll^-1 H_lc,   b_red = b_c - H_cl H_ll^-1 b_l
     with per-landmark 3x3 inversions; landmark updates by back-substitution.
     The landmark-axis contractions live in `sosvo/backend/schur.py` so the
-    distributed version can psum partial (S, b_red) over landmark shards and
-    the Pallas kernel (`sosvo/kernels/schur_pallas.py`) can swap in.
+    distributed version can psum partial (S, b_red) over landmark shards.
   - LM damping with accept/reject inside `lax.scan` -- no Python control flow.
 
 Gauge: the first keyframe is clamped by a large diagonal prior on its pose
@@ -175,8 +174,7 @@ def huber_weights(win: BAWindow, delta: float) -> jnp.ndarray:
 
 
 def lm_step(win: BAWindow, lam: jnp.ndarray, axis_name: str | None = None,
-            anchor: jnp.ndarray | int = 0, use_pallas: bool = False,
-            pallas_interpret: bool = False):
+            anchor: jnp.ndarray | int = 0):
     """One damped LM step: build blocks, Schur-reduce, solve, back-substitute.
 
     Returns the CANDIDATE updated window (caller decides accept/reject).
@@ -210,22 +208,8 @@ def lm_step(win: BAWindow, lam: jnp.ndarray, axis_name: str | None = None,
     clamp = jnp.maximum(one_hot, unobserved)
     H_cc = H_cc + (GAUGE_PRIOR * clamp)[:, None, None] * eye6[None]
 
-    # Pallas runs for real only on TPU; elsewhere it would be interpret-mode
-    # (orders of magnitude slow), so fall back to XLA unless a test explicitly
-    # asks for the interpreted kernel (pallas_interpret=True).
-    on_tpu = jax.default_backend() == "tpu"
-    if use_pallas and (on_tpu or pallas_interpret):
-        # Fused Pallas Schur path. Under landmark sharding the kernel computes
-        # this shard's partial (S_off, b_sub) and the wrapper psums them over
-        # `axis_name` before assembly, mirroring the XLA path.
-        from sosvo.kernels.schur_pallas import reduce_camera_system_pallas
-
-        S, b_red, H_ll_inv = reduce_camera_system_pallas(
-            H_cc, H_cl, H_ll, b_c, b_l, lam,
-            interpret=not on_tpu, damp_H_cc=False, axis_name=axis_name)
-    else:
-        H_ll_inv = inv3x3(H_ll + lam * eye3[None])  # (L, 3, 3) closed form
-        S, b_red = reduce_camera_system(H_cc, H_cl, H_ll_inv, b_c, b_l, axis_name)
+    H_ll_inv = inv3x3(H_ll + lam * eye3[None])  # (L, 3, 3) closed form
+    S, b_red = reduce_camera_system(H_cc, H_cl, H_ll_inv, b_c, b_l, axis_name)
 
     # Dense solve of the reduced (6W, 6W) camera system -- cameras are few.
     S_flat = S.transpose(0, 2, 1, 3).reshape(6 * W, 6 * W)
@@ -241,9 +225,7 @@ def lm_step(win: BAWindow, lam: jnp.ndarray, axis_name: str | None = None,
 
 def ba_solve(win: BAWindow, iters: int = 5, lam0: float = 1e-3,
              axis_name: str | None = None, anchor: jnp.ndarray | int = 0,
-             huber_delta: float | None = None,
-             use_pallas: bool = False,
-             pallas_interpret: bool = False) -> BAResult:
+             huber_delta: float | None = None) -> BAResult:
     """Levenberg-Marquardt with multiplicative damping adaptation.
 
     Accept a step iff it lowers the cost (then lam /= 3), else keep the old
@@ -278,8 +260,7 @@ def ba_solve(win: BAWindow, iters: int = 5, lam0: float = 1e-3,
             cost = ba_cost(w_eff, axis_name)
         else:
             w_eff = w
-        cand_w = lm_step(w_eff, lam, axis_name, anchor, use_pallas,
-                         pallas_interpret)
+        cand_w = lm_step(w_eff, lam, axis_name, anchor)
         cand = w._replace(X=cand_w.X, landmarks=cand_w.landmarks)
         cand_cost = ba_cost(cand._replace(weights=w_eff.weights), axis_name)
         accept = cand_cost < cost

@@ -1,9 +1,8 @@
 """Schur-complement reduction primitives for windowed BA.
 
 The landmark-axis contractions of BA's normal equations, factored into one
-module because they are (a) the BA hot loop named by BASELINE.json:5 ("Pallas
-kernels for the ... Jacobian/Schur hot loops" -- `sosvo/kernels/schur_pallas.py`
-swaps in here), and (b) the distribution point: under landmark sharding
+module because they are (a) the BA hot loop named by BASELINE.json:5, and
+(b) the distribution point: under landmark sharding
 (SURVEY.md P2-TP) every device computes `reduce_camera_system` over ITS
 landmark shard and the partial (S, b_red) are combined with `jax.lax.psum`
 (see `sosvo/dist/ba_dist.py`) -- the contraction is a sum over landmarks, so
@@ -21,9 +20,9 @@ from sosvo.geom.lie import se3_exp
 def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form batched 3x3 inverse via the adjugate ((..., 3, 3)).
 
-    ~8x faster than `jnp.linalg.inv`'s batched LU on TPU for the BA
-    landmark blocks (the inversion dominated the XLA Schur path).
-    Assumes well-conditioned (damped) inputs; no pivoting.
+    Pure elementwise arithmetic that XLA fuses into the Schur products,
+    where `jnp.linalg.inv` would run a batched LU. Assumes well-conditioned
+    (damped) inputs; no pivoting.
     """
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
@@ -44,7 +43,7 @@ def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
 def solve6x6_spd(H: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
     """Closed-form (..., 6, 6) SPD solve via one 2x2-block Schur step.
 
-    `jnp.linalg.solve` lowers a small LU loop on TPU; for the damped
+    `jnp.linalg.solve` lowers a small LU loop; for the damped
     Gauss-Newton normal equations (SPD by construction) two adjugate 3x3
     inversions + a handful of matmuls solve exactly:
 

@@ -19,7 +19,7 @@ realistic intrinsic perturbations.
 
 The problem is tiny (tens of parameters, thousands of residuals), so the
 normal equations are formed densely and solved with `jnp.linalg.solve` —
-the MXU-friendly shape is the (R, P) Jacobian matmul, which XLA fuses.
+the matmul-friendly shape is the (R, P) Jacobian matmul, which XLA fuses.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Calibration fitting: estimate unified-model parameters from observations.
 
-TPU-native replacement for the reference's calibration toolchain (SURVEY.md
+JAX replacement for the reference's calibration toolchain (SURVEY.md
 C16: GUM parameters fitted per mirror from chessboard/control-point
 observations with scipy least_squares). Here: damped Gauss-Newton on the
 reprojection residual with autodiff Jacobians, entirely jitted -- the

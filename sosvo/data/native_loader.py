@@ -2,9 +2,10 @@
 
 The C++ side (`native/seqloader.cpp`) is the framework's native data-loader
 runtime component (SURVEY.md C17/section 2.3: the reference's frame IO rides
-OpenCV's C++ decode; ours is a zlib + worker-thread prefetcher that keeps the
-TPU host fed with one memcpy per frame). The library builds on demand with
-g++ and is cached next to the source.
+OpenCV's C++ decode; ours is a zlib + worker-thread prefetcher that feeds
+the host side of the replay with one memcpy per frame). The library builds on
+demand with g++ and is cached next to the source (`native/libseqloader.so`,
+never committed).
 
 Format .sosq v1 (little-endian):
   header:  u32 magic 'SOSQ' | u32 version=1 | u32 frames | u32 H | u32 W
@@ -16,6 +17,7 @@ Format .sosq v1 (little-endian):
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 import subprocess
 import zlib
@@ -31,11 +33,15 @@ _LIB = _SRC.parent / "libseqloader.so"
 def _build_lib() -> Path:
     if _LIB.exists() and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
         return _LIB
+    # Build under a per-process name and rename: processes that build at
+    # once (parallel test workers) never load a half-written library.
+    tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
     subprocess.run(
-        ["g++", "-O2", "-shared", "-fPIC", "-o", str(_LIB), str(_SRC),
+        ["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(_SRC),
          "-lz", "-lpthread"],
         check=True, capture_output=True, text=True,
     )
+    os.replace(tmp, _LIB)
     return _LIB
 
 

@@ -2,7 +2,7 @@
 
 The reference reads rig captures / POV-Ray renders with OpenCV and TUM-format
 ground truth [P1/K]. Here sequences are stored as single .npz bundles
-(pre-staged device-ready tensors beat per-frame image decode on TPU hosts --
+(pre-staged device-ready tensors beat per-frame image decode on the host --
 SURVEY.md section 2.3) with optional TUM-format ground-truth import/export
 for interop with standard evaluation tooling.
 """

@@ -10,8 +10,8 @@ computed replicated on every device. Correctness invariant (tested on the
 8-device CPU mesh, SURVEY.md section 4.3): sharded result == single-device
 result to f32 reduction tolerance.
 
-Collectives ride ICI within a slice and DCN across hosts; on a multi-host pod
-the identical code runs after `sosvo.dist.mesh.init_multihost()`.
+XLA lowers the collectives to NCCL across the cards of a host; across
+processes the identical code runs after `sosvo.dist.mesh.init_multihost()`.
 """
 
 from __future__ import annotations
@@ -42,8 +42,7 @@ def _window_specs() -> BAWindow:
 
 
 def ba_solve_sharded(mesh: Mesh, win: BAWindow, iters: int = 5,
-                     lam0: float = 1e-3, use_pallas: bool = True,
-                     pallas_interpret: bool = False) -> BAResult:
+                     lam0: float = 1e-3) -> BAResult:
     """Solve a BA window with landmarks sharded over `mesh`'s "model" axis.
 
     The landmark count L must be divisible by the model-axis size. Inputs may
@@ -65,8 +64,7 @@ def ba_solve_sharded(mesh: Mesh, win: BAWindow, iters: int = 5,
     # dynamically: tests/test_ba_dist.py vs the single-device solver, and
     # __graft_entry__.dryrun_multichip in the driver artifact.
     fn = shard_map(
-        functools.partial(ba_solve, iters=iters, lam0=lam0, axis_name=MODEL_AXIS,
-                          use_pallas=use_pallas, pallas_interpret=pallas_interpret),
+        functools.partial(ba_solve, iters=iters, lam0=lam0, axis_name=MODEL_AXIS),
         mesh=mesh,
         in_specs=(specs,),
         out_specs=out_specs,

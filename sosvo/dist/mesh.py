@@ -1,18 +1,20 @@
 """Device mesh construction and sharding helpers.
 
-TPU-native distributed runtime (SURVEY.md P5-COMM; the reference is a single
-process with no parallelism of any kind [K]). Scaling is expressed the
-idiomatic JAX way: a named `jax.sharding.Mesh` over the chips, logical axes
+Distributed runtime (SURVEY.md P5-COMM; the reference is a single process
+with no parallelism of any kind [K]). Scaling is expressed the idiomatic JAX
+way: a named `jax.sharding.Mesh` over the devices, logical axes
   - "data":  independent work items -- sequences in batched replay (P1-DP,
              BASELINE.json:10), RANSAC hypothesis blocks;
   - "model": landmark shards of the BA linear system (P2-TP,
              BASELINE.json:11).
-Collectives (`psum`, `all_gather`, `ppermute`) ride ICI within a slice and
-DCN across hosts -- XLA inserts the transport; no NCCL/MPI analog is needed.
+The mesh is built from `jax.devices()` in order and assumes no topology: the
+four cards of one host are joined all to all by NVLink, and one process drives
+them all. XLA lowers the collectives (`psum`, `all_gather`, `ppermute`) to
+NCCL.
 
-Multi-host bootstrap goes through `jax.distributed.initialize()`
-(`init_multihost`), after which `jax.devices()` spans the slice and the same
-mesh code works unchanged.
+Multi-process bootstrap goes through `jax.distributed.initialize()`
+(`init_multihost`), after which `jax.devices()` spans every process and the
+same mesh code works unchanged.
 """
 
 from __future__ import annotations
@@ -67,9 +69,10 @@ def init_multihost(coordinator: str | None = None, num_processes: int | None = N
                    process_id: int | None = None, timeout_s: int = 120) -> None:
     """Multi-host bootstrap: barrier + global device visibility.
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    they exist for explicit/CPU testing. Fail-fast on barrier timeout is the
-    failure-detection mechanism of SURVEY.md section 5.3.
+    Nothing detects a cluster by itself: pass the coordinator address
+    (`localhost:<port>` on one machine), the process count and this
+    process's id. Fail-fast on barrier timeout is the failure-detection
+    mechanism of SURVEY.md section 5.3.
     """
     kwargs = {}
     if coordinator is not None:

@@ -210,8 +210,7 @@ def _gn_step(g: TimeShardedGraph, lam, axis_name: str, cg_iters: int,
     # Invert the block-diagonal ONCE (closed-form unrolled-Cholesky SPD
     # inverse, sosvo/backend/schur.py) instead of a batched LU solve inside
     # every PCG iteration: the (n_loc, 6, 6) jnp.linalg.solve lowers to
-    # XLA's blocked-loop kernel and dominated the whole time-sharded solve
-    # (measured 3.9 s of a 3.9 s c3_long PGO dispatch, LOOP_PHASES.json r5).
+    # XLA's blocked-loop kernel inside every iteration.
     from sosvo.backend.schur import inv6x6_spd
 
     D_inv = inv6x6_spd(D_blk)
@@ -294,11 +293,9 @@ def _jitted_solver(mesh, axis_name, iters, lam0, cg_iters, robust,
     """One jitted shard_map program per (mesh, solver-config) key.
 
     Building the shard_map + jit closure INSIDE the solve meant every call
-    retraced and re-lowered the whole program: ~3 s per call at c3_long
-    scale regardless of iters/cg_iters, while the solve itself executes in
-    milliseconds (measured r5 -- the entire "PGO solve 3.9 s" phase in
-    LOOP_PHASES.json was this). Mesh and the config scalars are hashable,
-    so an lru_cache turns repeat solves into plain jit-cache hits.
+    retraced and re-lowered the whole program, while the solve itself
+    executes in milliseconds. Mesh and the config scalars are hashable, so
+    an lru_cache turns repeat solves into plain jit-cache hits.
     """
     time_spec = TimeShardedGraph(
         X=P(axis_name), node_valid=P(axis_name),

@@ -8,7 +8,7 @@ solve (`sosvo/dist/ba_dist.py`): the tracking/association state machine runs
 replicated (it is a few percent of the frame cost), and every keyframe's
 window solve executes under `shard_map` on the mesh's "model" axis -- each
 device reduces its landmark shard's camera-system contribution, partial
-(S, b) blocks psum over ICI/DCN, the small camera solve replicates, and
+(S, b) blocks psum across the cards, the small camera solve replicates, and
 back-substitution is shard-local (SURVEY.md section 3.4's device-boundary
 diagram, now inside the replay scan).
 
@@ -34,9 +34,7 @@ from sosvo.vo.ba_pipeline import BAState, BAStepOutput, run_replay_ba
 from sosvo.vo.keyframes import MapState, window_anchor
 
 
-def make_sharded_ba_fn(mesh: Mesh, rig: OmnistereoRig, cfg: PipelineConfig,
-                       use_pallas: bool | None = None,
-                       pallas_interpret: bool = False):
+def make_sharded_ba_fn(mesh: Mesh, rig: OmnistereoRig, cfg: PipelineConfig):
     """A MapState -> (MapState, cost) window solve sharded over `mesh`.
 
     Drop-in for `step_ba`'s `ba_fn`: builds the BAWindow from the map state,
@@ -49,17 +47,13 @@ def make_sharded_ba_fn(mesh: Mesh, rig: OmnistereoRig, cfg: PipelineConfig,
         raise ValueError(
             f"max_landmarks={cfg.ba.max_landmarks} not divisible by the "
             f"model axis ({n_model})")
-    if use_pallas is None:
-        use_pallas = cfg.ba.use_pallas_schur
 
     win_specs = _window_specs()
     res_specs = BAResult(X=P(), landmarks=P(MODEL_AXIS), cost=P(), cost0=P(),
                          accepted=P())
     def _solve(win, anchor):
         return ba_solve(win, iters=cfg.ba.iters, axis_name=MODEL_AXIS,
-                        anchor=anchor, huber_delta=cfg.ba.huber_delta,
-                        use_pallas=use_pallas,
-                        pallas_interpret=pallas_interpret)
+                        anchor=anchor, huber_delta=cfg.ba.huber_delta)
 
     solve = shard_map(
         _solve,
@@ -89,10 +83,7 @@ def run_replay_ba_sharded(
     cfg: PipelineConfig,
     state: BAState,
     obs_seq: FrameObservations,
-    use_pallas: bool | None = None,
-    pallas_interpret: bool = False,
 ) -> tuple[BAState, BAStepOutput]:
     """`run_replay_ba` with every keyframe BA solve landmark-sharded."""
-    ba_fn = make_sharded_ba_fn(mesh, rig, cfg, use_pallas=use_pallas,
-                               pallas_interpret=pallas_interpret)
+    ba_fn = make_sharded_ba_fn(mesh, rig, cfg)
     return run_replay_ba(rig, cfg, state, obs_seq, ba_fn=ba_fn)

@@ -1,6 +1,6 @@
 """Trajectory evaluation: ATE and RPE, TUM-benchmark style.
 
-TPU-native replacement for the reference's evaluation layer (SURVEY.md C18:
+JAX replacement for the reference's evaluation layer (SURVEY.md C18:
 TUM-style ATE/RPE scripts against Vicon / synthetic ground truth [P1/K]).
 This produces the headline metric of BASELINE.json:2 ("ATE RMSE (m)").
 

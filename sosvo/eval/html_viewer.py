@@ -1,7 +1,7 @@
 """Interactive 3D trajectory + map viewer: one self-contained HTML file.
 
 The reference inspected results interactively (matplotlib/visvis windows,
-SURVEY.md C19); a headless TPU pod has no display, so the interactive
+SURVEY.md C19); a headless accelerator host has no display, so the interactive
 artifact here is a single HTML file with an embedded pure-JS canvas renderer
 (orbit / zoom / pan, hover readout, GT-vs-estimate toggle) -- no external
 libraries or network access needed, open it in any browser. Written by the

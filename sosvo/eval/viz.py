@@ -3,8 +3,8 @@
 The reference ships matplotlib/visvis viewers for the raw omni image with
 detected keypoints, stereo-match overlays, and the triangulated 3D point
 cloud next to the trajectory (SURVEY.md C19: "omni-image/panorama overlays,
-3D point cloud + trajectory plots"). These are their TPU-framework
-equivalents: pure host-side numpy + matplotlib, never on the compute path.
+3D point cloud + trajectory plots"). These are their equivalents
+here: pure host-side numpy + matplotlib, never on the compute path.
 
 Artifacts:
   - `save_ply`          landmark map / triangulated points as ASCII PLY

@@ -1,7 +1,7 @@
 """AKAZE-style features: nonlinear scale space + Hessian detection + M-LDB.
 
 Completes the reference's descriptor option set (SURVEY.md C6: "ORB default;
-SIFT/AKAZE options" via OpenCV's C++ `cv2.AKAZE_create`). TPU-native design:
+SIFT/AKAZE options" via OpenCV's C++ `cv2.AKAZE_create`). Fixed-shape JAX design:
 
 - **Nonlinear scale space**: Perona-Malik g2 diffusion ("edge-stopping":
   conductivity g = 1 / (1 + |grad I|^2 / k^2) suppresses smoothing across
@@ -144,8 +144,8 @@ def detect_akaze(pano: jnp.ndarray, max_features: int,
     in_band = (row_ids >= border_rows) & (row_ids < h - border_rows)
     resp_nms = jnp.where(in_band, resp_nms, -jnp.inf)
 
-    # approx_max_k for the same reason as detect.py's detection top-k
-    # (full-sort lowering vs the TPU bucketed-reduction kernel, r5).
+    # approx_max_k as in detect.py's detection top-k (on the GPU XLA lowers
+    # it to an exact top-k).
     vals, idx = jax.lax.approx_max_k(resp_nms.reshape(-1), max_features,
                                      recall_target=0.99)
     r_i = (idx // w).astype(jnp.int32)

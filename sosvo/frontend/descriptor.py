@@ -1,6 +1,6 @@
 """Binary descriptors: BRIEF-style 256-bit intensity-pair comparisons.
 
-TPU-native replacement for the reference's OpenCV C++ BRIEF/ORB descriptor
+JAX replacement for the reference's OpenCV C++ BRIEF/ORB descriptor
 boundary (SURVEY.md C6: "oriented-BRIEF-style 256-bit binary descriptor via
 gather of smoothed-intensity pairs"). The sampling pattern is a fixed random
 set of point pairs in a patch (same idea as BRIEF's learned/ random pattern),
@@ -14,7 +14,7 @@ which is small for the MAV platform [P2], and upright BRIEF is both cheaper
 and more discriminative when rotation is absent. Set
 `FrontendConfig.oriented=True` to steer: per-keypoint angle from the
 intensity centroid of a radius-7 disk (ORB's IC_Angle), the sampling pattern
-rotated by that angle before the gather -- the TPU-native equivalent of
+rotated by that angle before the gather -- the JAX equivalent of
 OpenCV's steered-BRIEF lookup tables, except the rotation is exact instead of
 quantized to 30 bins.
 
@@ -153,7 +153,7 @@ def describe_sift(
 ) -> jnp.ndarray:
     """(K, 128) float32 SIFT-style descriptors at the keypoints.
 
-    TPU-native equivalent of the reference's optional SIFT frontend (SURVEY.md
+    JAX equivalent of the reference's optional SIFT frontend (SURVEY.md
     C6 lists "ORB default; SIFT/AKAZE options"): 4x4 spatial cells x 8
     orientation bins of Gaussian-weighted gradient magnitude over a 16x16
     sample grid, trilinear in orientation, L2-normalized with the standard

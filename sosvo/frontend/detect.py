@@ -1,6 +1,6 @@
 """Feature detection on panoramas: Harris corners + NMS + fixed top-K.
 
-TPU-native replacement for the reference's OpenCV C++ detector boundary
+JAX replacement for the reference's OpenCV C++ detector boundary
 (SURVEY.md C6: ORB = FAST + Harris ranking + BRIEF; here the detector is a
 Harris corner response -- the ranking ORB itself uses -- computed as a few
 separable convolutions, entirely fusable by XLA). The key JIT-ification move
@@ -39,11 +39,10 @@ def _conv2_sep(img: jnp.ndarray, kr: jnp.ndarray, kc: jnp.ndarray) -> jnp.ndarra
     """Separable 2D convolution with wrap-padded borders.
 
     Implemented as static-slice shift-and-add (taps unrolled at trace time),
-    NOT `lax.conv`: TPU's conv path is built for many-channel MXU work and
-    pays layout/im2col overhead that dwarfs a 5-tap single-channel filter.
-    Shift-add is pure VPU elementwise work that XLA fuses into one pass over
-    the panorama (~0.3 MB) -- measured ~10x faster on v5e than the conv
-    formulation this replaced.
+    NOT `lax.conv`: a conv path built for many-channel work pays layout
+    overhead that dwarfs a 5-tap single-channel filter. Shift-add is pure
+    elementwise work that XLA fuses into one pass over the panorama
+    (~0.3 MB).
     """
     pr, pc = kr.shape[0] // 2, kc.shape[0] // 2
     h, w = img.shape
@@ -92,8 +91,7 @@ def nms_local_max(resp: jnp.ndarray, radius: int = 1) -> jnp.ndarray:
     """Keep only strict local maxima in a (2r+1)^2 window (wrap columns).
 
     Max-pooling is separable: a 1D row window then a 1D column window give
-    the same (2r+1)^2 max with 2(2r+1) comparisons instead of (2r+1)^2 --
-    the square reduce_window was a measured hot spot of detection on TPU.
+    the same (2r+1)^2 max with 2(2r+1) comparisons instead of (2r+1)^2.
     """
     pad = radius
     x = _wrap_pad(resp, pad)
@@ -193,13 +191,12 @@ def detect(
     resp = jnp.where(in_band, resp, -jnp.inf)
 
     flat = resp.reshape(-1)
-    # TPU-native approximate top-k by default: `lax.top_k` over the H*W
-    # response map lowers to a full sort and `approx_max_k` (the TPU
-    # bucketed-reduction kernel) is worth ~0.125 ms on the two-view c2
-    # extract (1.22 -> 1.10 ms/frame, r5 A/B). At recall 0.99 the ~1% it
-    # may drop are marginal responses at the K-th-corner boundary; measured
-    # ATE across the image-mode suite is unchanged. `exact_topk=True`
-    # restores the exact selection (debug/parity).
+    # `approx_max_k` at recall 0.99 by default: where a backend lowers it to
+    # an approximate kernel, the ~1% it may drop are marginal responses at
+    # the K-th-corner boundary (ATE across the image-mode suite is
+    # unchanged); on the GPU XLA lowers it to an exact top-k. Whether it
+    # or `lax.top_k` is faster on the GPU is not measured yet.
+    # `exact_topk=True` forces the exact selection (debug/parity).
     if exact_topk:
         vals, idx = jax.lax.top_k(flat, max_features)
     else:

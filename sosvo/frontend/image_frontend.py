@@ -137,17 +137,11 @@ def extract_observations(
         uv_b, ray_b, desc_b, ok_b = run_view(rig.bottom, luts.bottom)
     else:
         # SEQUENTIAL per-view streams, each warp fused with its consumers.
-        # VERDICT r4 #7's proposed restructures were MEASURED and rejected
-        # on v5e at the c2 config (scan-amortized, within one process):
-        #   - both views vmapped through one detect/describe program:
-        #     2.07 ms/frame vs 1.19 sequential (batched top-k/gather
-        #     lowerings lose more than halved launch overhead saves);
-        #   - shared-quad stacked warp + sequential detect: 1.78 vs 1.19
-        #     (the stacked gather forces materialization between warp and
-        #     smooth and a worse gather lowering).
-        # The per-view quad-gather warp already sits at the TPU per-index
-        # gather floor (BASELINE.md kernel table), so two fused per-view
-        # streams are the fastest known layout.
+        # Two restructures lost to this layout on the previous accelerator
+        # and are not measured on the GPU yet: both views vmapped through
+        # one detect/describe program (batched top-k/gather lowerings), and
+        # a shared-quad stacked warp (it forces materialization between
+        # warp and smooth).
         uv_t, ray_t, desc_t, ok_t = run_view_pano(
             warp_panorama(image, luts.top), rig.top, luts.top.valid,
             luts.top)

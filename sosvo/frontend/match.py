@@ -1,21 +1,17 @@
 """Descriptor matching: Hamming distance + ratio test + cross-check, pure XLA.
 
-TPU-native replacement for the reference's OpenCV C++ BFMatcher boundary
-(SURVEY.md C7, one of the two named hot loops in BASELINE.json:5 "Pallas
-kernels for the match/score ... hot loops"). This module is the XLA reference
-path; `sosvo/kernels/match_pallas.py` is the fused Pallas kernel that must be
-bit-identical to it (SURVEY.md SS4.1 "kernel equivalence").
+JAX replacement for the reference's OpenCV C++ BFMatcher boundary
+(SURVEY.md C7, one of the two named hot loops in BASELINE.json:5).
 
-TPU-first design: instead of a scalar popcount loop (the CPU idiom), Hamming
-distance between 256-bit descriptors is computed on the MXU as a matmul of
-+/-1-valued bf16 bit vectors:
+Instead of a scalar popcount loop (the CPU idiom), Hamming distance between
+256-bit descriptors is computed by the matrix unit (the GPU's tensor cores)
+as a matmul of +/-1-valued bf16 bit vectors:
 
     hamming(a, b) = (NBITS - <bits(a)*2-1, bits(b)*2-1>) / 2
 
-which makes the distance matrix a (K, 256) x (256, K) matmul -- exactly what
-the systolic array is built for -- while staying exact (integer values are
-representable in bf16-accumulated-f32 up to 256). A popcount-XOR path is kept
-for verification.
+which makes the distance matrix a (K, 256) x (256, K) matmul while staying
+exact (+/-1 is exact in bf16 and the f32 accumulation of at most 256 such
+products is exact). A popcount-XOR path is kept for verification.
 
 Both stereo matching (constrained to +/-Delta azimuth columns, because the
 coaxial views are azimuth-aligned [P1]) and unconstrained temporal matching

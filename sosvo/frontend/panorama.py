@@ -1,6 +1,6 @@
 """Cylindrical panorama generation from the raw omnidirectional image.
 
-TPU-native replacement for the reference's LUT + `cv2.remap` panorama stage
+JAX replacement for the reference's LUT + `cv2.remap` panorama stage
 (SURVEY.md C5: per-view pixel LUT built once per calibration, then a C++
 remap per frame). Here the LUT is built in JAX once per (rig, pano-geometry)
 and the per-frame warp is a bilinear gather via
@@ -29,14 +29,14 @@ class PanoGeometry(NamedTuple):
 
     Besides the float (u, v) coords, the bilinear interpolation is fully
     precomputed at calibration time (SURVEY.md C5 "LUT build ... once").
-    TPU gathers cost ~10 ns per INDEX regardless of fetch width (measured on
-    v5e), so the LUT addresses 2x2 QUADS: the per-frame warp restructures
-    the raw image into 4-wide quad rows (img[y,x], img[y,x+1], img[y+1,x],
+    The LUT addresses 2x2 QUADS: the per-frame warp restructures the raw
+    image into 4-wide quad rows (img[y,x], img[y,x+1], img[y+1,x],
     img[y+1,x+1]) in two horizontal phase tables (even/odd x0), and each
     pano pixel fetches its ENTIRE bilinear footprint with a SINGLE gather
-    index (`idx_r0`) -- same result at 1/4 the gather cost of the 4-corner
-    flat-take warp, and 1/2 that of the r2 pair-table scheme (2 indices:
-    separate y0/y1 row taps). Measured: warp 1.09 -> 0.82 ms/view (m33).
+    index (`idx_r0`) -- a quarter of the gather indices of the 4-corner
+    flat-take warp. The layout was chosen where gathers cost per index
+    regardless of fetch width; whether it still pays on the GPU is not
+    measured yet.
     """
 
     height: int
@@ -120,14 +120,12 @@ def warp_panorama(image: jnp.ndarray, geom: PanoGeometry) -> jnp.ndarray:
 
     Equivalent of the reference's `cv2.remap` call. All interpolation
     arithmetic is baked into the static LUT; the per-frame work is ONE quad
-    gather + lerps. TPU gather cost is ~10 ns per INDEX regardless of fetch
-    width (measured on v5e), so the image is restructured per frame into
-    2x2 QUAD rows (img[y,x], img[y,x+1], img[y+1,x], img[y+1,x+1]) in two
+    gather + lerps. The image is restructured per frame into 2x2 QUAD rows (img[y,x], img[y,x+1], img[y+1,x], img[y+1,x+1]) in two
     horizontal phase tables; each pano pixel then fetches its full bilinear
     footprint with a SINGLE index (same `idx_r0` layout as the earlier
     pair-table scheme, which needed two indices: the y0 and y1 taps).
     The restructure itself is strided slices + one copy (~2.3 MB), which
-    XLA streams at HBM rate -- negligible next to the gather savings.
+    XLA streams at memory bandwidth.
     """
     q = jnp.take(_quad_tables(image), geom.idx_r0, axis=0)  # (H, W, 4)
     v0 = q[..., 0] * (1.0 - geom.fu) + q[..., 1] * geom.fu
@@ -151,11 +149,8 @@ def _quad_tables(image: jnp.ndarray) -> jnp.ndarray:
     return jnp.concatenate([even.reshape(-1, 4), odd.reshape(-1, 4)])
 
 
-# NOTE (r5): a `warp_panorama_stacked` variant (quad tables built once, both
-# views' footprints fetched with stacked (2, H, W) indices) was measured
-# SLOWER on v5e at the c2 config -- 1.78 vs 1.19 ms/frame for the full
-# two-view extract: the stacked gather lowers worse and forces the warp
+# NOTE: a `warp_panorama_stacked` variant (quad tables built once, both
+# views' footprints fetched with stacked (2, H, W) indices) forces the warp
 # output to materialize instead of fusing into each view's smooth/detect
-# consumers. Two per-view warps (each at the per-index gather floor) fused
-# into their own streams remain the fastest known layout; see
-# image_frontend.extract_observations for the full measurement note.
+# consumers; two per-view warps fused into their own streams are kept (see
+# image_frontend.extract_observations).

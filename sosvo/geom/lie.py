@@ -1,16 +1,16 @@
 """SO(3)/SE(3) Lie-group math, pure JAX.
 
-TPU-native replacement for the reference's vendored rigid-transform utility
+JAX replacement for the reference's vendored rigid-transform utility
 module (SURVEY.md C1: `omnistereo/transformations.py`, Gohlke's library).
 Since the reference mount is empty (SURVEY.md SS0), parity targets are the
 standard conventions of that library: right-handed frames, 4x4 homogeneous
 matrices, quaternions in (w, x, y, z) order.
 
-Design notes (TPU-first):
+Design notes:
   * Everything is a pure function over jnp arrays; every function vmaps and
     jits. No data-dependent control flow -- small-angle branches are handled
     with `jnp.where` on numerically safe Taylor expansions.
-  * f32-safe: thresholds are chosen for float32 (TPU native). Tests verify
+  * f32-safe: thresholds are chosen for float32 (the working dtype). Tests verify
     round-trips at f32 tolerances (SURVEY.md SS4.1).
   * Representations: rotations as 3x3 matrices, rigid transforms as 4x4
     homogeneous matrices, tangent vectors as 6-vectors (omega, v) with the

@@ -1,6 +1,6 @@
 """3D-3D rigid alignment (Kabsch-Umeyama), batched pure JAX.
 
-TPU-native replacement for the reference's closed-form absolute-orientation
+JAX replacement for the reference's closed-form absolute-orientation
 solver (SURVEY.md C11: numpy-SVD Umeyama/Horn used as the core frame-to-frame
 VO pose solver [P1], and inside ATE evaluation). Weighted so it can run on
 fixed-size masked point sets (invalid slots get weight 0) and be vmapped over
@@ -46,8 +46,8 @@ def umeyama(
     # Covariance sum w * dst_c src_c^T, normalized for conditioning.
     cov = jnp.einsum("...ni,...nj->...ij", dst_c * w, src_c) / wsum
     # Rotation via Horn's quaternion method (no SVD: a single small
-    # jnp.linalg.svd lowers to an iterative loop costing ~100s of us on TPU,
-    # and this runs once per frame in the RANSAC refit). The quaternion
+    # jnp.linalg.svd lowers to an iterative loop, and this runs once per
+    # frame in the RANSAC refit). The quaternion
     # parameterization returns a proper rotation by construction -- the same
     # result as Kabsch's det-sign correction.
     R = procrustes_rotation(cov)
@@ -67,9 +67,8 @@ def _adj4(K: jnp.ndarray) -> jnp.ndarray:
     """Adjugate of a (..., 4, 4) matrix, fully unrolled into elementwise ops.
 
     Every minor is read with STATIC integer indices (compile-time slices),
-    never fancy indexing: the r2 implementation built each 3x3 minor with
-    `K[..., rows[:, None], cols[None, :]]` -- 16 TPU gather ops, measured
-    ~180 us single-instance on v5e. This form is pure mul/add arithmetic.
+    never fancy indexing (`K[..., rows[:, None], cols[None, :]]` would be 16
+    gather ops). This form is pure mul/add arithmetic.
     No divisions anywhere, so ANY finite input (including exactly singular)
     yields a finite adjugate -- the property procrustes_rotation's kernel
     extraction relies on.
@@ -96,9 +95,9 @@ def _adj4(K: jnp.ndarray) -> jnp.ndarray:
 def procrustes_rotation(M: jnp.ndarray, iters: int = 16) -> jnp.ndarray:
     """Rotation R maximizing tr(R^T M), SVD-free (Horn's quaternion method).
 
-    On TPU a single small `jnp.linalg.svd`/`eigh` lowers to an iterative
-    one-sided-Jacobi/QR loop costing tens-to-hundreds of microseconds -- per
-    FRAME that dwarfs the whole matmul pipeline around it. Horn's classic
+    A single small `jnp.linalg.svd`/`eigh` lowers to an iterative
+    one-sided-Jacobi/QR loop of many small dependent steps -- per FRAME that
+    can dwarf the whole matmul pipeline around it. Horn's classic
     alternative: tr(R(q)^T M) = q^T N(M) q for unit quaternions q, so the
     optimum is the largest eigenpair of a symmetric 4x4 -- computed here the
     QCP way (Newton on the quartic characteristic polynomial + adjugate
@@ -211,8 +210,8 @@ def rigid_from_three_points(src: jnp.ndarray, dst: jnp.ndarray) -> jnp.ndarray:
     Builds an orthonormal frame from each (centered) triangle and maps one
     onto the other: R = B_dst B_src^T, t = c_dst - R c_src. Algebraically
     exact when the correspondence is exact (the RANSAC minimal-set case);
-    unlike Umeyama it needs no SVD, which matters on TPU where hundreds of
-    batched small SVDs per frame dominate the vmapped-hypothesis RANSAC
+    unlike Umeyama it needs no SVD, which matters because hundreds of
+    batched small SVDs per frame would dominate the vmapped-hypothesis RANSAC
     (SURVEY.md C10/C11 -- the reference pays numpy SVD per hypothesis).
 
     Near-collinear triangles produce a garbage-but-finite R (safe-normalized);

@@ -1,6 +1,6 @@
 """Essential-matrix estimation on the sphere, batched pure JAX.
 
-TPU-native replacement for the reference's omnidirectional epipolar module
+JAX replacement for the reference's omnidirectional epipolar module
 (SURVEY.md C9: 8-point-style E estimation from unit-ray correspondences,
 `r2^T E r1 = 0` directly on sphere rays -- no image-plane normalization step
 exists for omnidirectional cameras, the rays ARE the normalized coordinates).
@@ -14,7 +14,7 @@ frame-2-from-frame-1 motion X2 = R X1 + t, the constraint is
 Fit: weighted DLT. Each correspondence contributes a row a = vec(r2 r1^T)
 (row-major pairing with vec(E)); the solution is the eigenvector of the
 smallest eigenvalue of sum_i w_i a_i a_i^T (9x9 symmetric eigh -- batched,
-no tall SVD, TPU-friendly). Weights make fixed-size masked sets and RANSAC
+no tall SVD). Weights make fixed-size masked sets and RANSAC
 minimal-set selection exact.
 """
 
@@ -54,10 +54,9 @@ def _chol9(M: jnp.ndarray) -> jnp.ndarray:
     """Batched 9x9 Cholesky, fully unrolled into elementwise ops.
 
     `jnp.linalg.cholesky` on a (H, 9, 9) batch lowers to XLA's general
-    blocked-loop kernel: measured 588 us for H=512 on v5e vs 120 us for this
-    unrolled form (scripts/bench_essential_micro.py) -- the single largest
-    line item of the r2 bench regression (BASELINE.md r3 note). Unrolling is
-    exact, not an approximation: same flops, static schedule, no loop kernel.
+    blocked-loop kernel; this unrolled form is one fused elementwise
+    program. Unrolling is exact, not an approximation: same flops, static
+    schedule, no loop kernel.
     """
     n = 9
     L = [[None] * n for _ in range(n)]
@@ -122,9 +121,9 @@ def fit_essential_fast(rays1: jnp.ndarray, rays2: jnp.ndarray,
     For RANSAC minimal sets the 9x9 normal matrix has an (almost) exact null
     vector, so one-two inverse iterations on (M + eps*I) isolate it: the null
     direction is amplified by 1/eps vs 1/lambda_i for the rest. Batched 9x9
-    Cholesky + triangular solves are ~an order of magnitude cheaper than
-    batched eigh on TPU, which made the essential hypothesis batch half the
-    VO frame cost. The exact eigh fit remains for the final refit.
+    Cholesky + triangular solves avoid the iterative loop of a batched
+    eigh over the whole hypothesis batch. The exact eigh fit remains for
+    the final refit.
     """
     from sosvo.utils import debug
 
@@ -189,21 +188,19 @@ def fit_essential_refit(rays1: jnp.ndarray, rays2: jnp.ndarray,
     cluster (the near-pure-translation case where single-vector inverse
     iteration returns a mixture -- see `ransac_essential`); the projected
     3x3 eigenproblem V^T M V then separates them exactly in closed form.
-    A 9x9 eigh lowers to an iterative Jacobi loop on TPU (~0.5 ms on v5e,
-    measured as the r2 bench drop 872->580 frames/s); this is three
-    triangular solves and a closed-form 3x3 -- restoring the eigh-free frame
-    while keeping the eigh's clustered-eigenvalue correctness
+    A 9x9 eigh lowers to an iterative Jacobi loop; this is three
+    triangular solves and a closed-form 3x3 -- an eigh-free frame that
+    keeps the eigh's clustered-eigenvalue correctness
     (tests/test_geometry.py::test_refit_matches_eigh*).
     """
     a = essential_rows(rays1, rays2)
     M = jnp.einsum("...ni,...nj->...ij", a * weights[..., None], a)
     scale = jnp.trace(M, axis1=-2, axis2=-1)[..., None, None] / 9.0 + 1e-12
     Mn = M / scale
-    # Size switch (measured, scripts/bench_essential_micro.py): the unrolled
-    # Cholesky wins 5x for hypothesis BATCHES (vector units amortize the
-    # scalar chain across the batch) but LOSES ~2x for a single instance
-    # (batch-1 elementwise chains are pure latency); the library kernel is the
-    # right call for this once-per-frame refit.
+    # Size switch: the unrolled Cholesky suits hypothesis BATCHES (vector
+    # units amortize the scalar chain across the batch) but not a single
+    # instance (batch-1 elementwise chains are pure latency); the library
+    # kernel is the right call for this once-per-frame refit.
     from sosvo.utils import debug
 
     batched = M.ndim > 2 and debug.UNROLLED_SOLVERS
@@ -343,9 +340,8 @@ def decompose_essential(
       support: (...,) weighted cheirality-consistent correspondence count.
     """
     # Fully closed-form candidate extraction (this runs once per frame, so
-    # latency-bound serial solvers dominate: a single 3x3 jnp.linalg.svd is
-    # 89 us on v5e and the QCP-Newton Procrustes used through r2 is 183 us --
-    # scripts/bench_essential_micro.py):
+    # latency-bound serial solvers such as a 3x3 jnp.linalg.svd would
+    # dominate):
     #   t: the left null direction of E (E = [t]x R => t^T E = 0), i.e. the
     #      smallest eigenvector of G = E E^T -- closed-form (adjugate)
     #      inverse-iteration steps on G + eps*I.

@@ -1,12 +1,12 @@
 """Vmapped fixed-batch RANSAC: rigid 3D-3D and essential-matrix variants.
 
-TPU-native replacement for the reference's sequential Python RANSAC loops
+JAX replacement for the reference's sequential Python RANSAC loops
 (SURVEY.md C10). Per BASELINE.json:5 ("batched RANSAC hypotheses vmapped per
 chip") there is NO data-dependent loop: a fixed number H of hypotheses is
 sampled, fitted and scored entirely in parallel, then the best is selected
-with argmax and refit on its inliers. With H in the hundreds this dominates
-adaptive-termination RANSAC on TPU: all hypotheses cost one fused batched
-pass, and under data parallelism H scales with the chip count.
+with argmax and refit on its inliers. With H in the hundreds this beats
+adaptive-termination RANSAC on an accelerator: all hypotheses cost one fused
+batched pass, and under data parallelism H scales with the device count.
 
 Minimal-set sampling uses the Gumbel-top-k trick over the validity mask:
 per hypothesis, add Gumbel noise to log(valid) and take the top S indices --
@@ -165,8 +165,8 @@ def ransac_rigid(
     src = pts_prev[idx]  # (H, 3, 3)
     dst = pts_curr[idx]
     # SVD-free closed form for the minimal sets: exact on 3 exact pairs, and
-    # ~10x cheaper than batched-SVD Umeyama on TPU (H small SVDs per frame
-    # would dominate the step). The weighted-SVD Umeyama below runs ONCE for
+    # no batched-SVD Umeyama (H small SVDs per frame would dominate the
+    # step). The weighted-SVD Umeyama below runs ONCE for
     # the refit, where its least-squares property matters.
     T_h = rigid_from_three_points(src, dst)  # (H, 4, 4)
 
@@ -244,9 +244,8 @@ def ransac_essential(
     # 256/256 on a noise-free translation-only case). The hypothesis batch
     # can afford that failure mode -- bad hypotheses just lose the vote --
     # the refit cannot. `fit_essential_refit` is the eigh-free Rayleigh-Ritz
-    # subspace fit with the same clustered-eigenvalue behavior as eigh at a
-    # fraction of its TPU cost (a single 9x9 eigh in-scan cost ~0.5 ms/frame,
-    # the r2 872->580 frames/s bench regression).
+    # subspace fit with the same clustered-eigenvalue behavior as eigh
+    # without eigh's iterative loop inside the scan.
     E_refit = fit_essential_refit(rays1, rays2, w)
     res_f = epipolar_residual_angle(E_refit, rays1, rays2)
     inl_f = (res_f < threshold) & valid

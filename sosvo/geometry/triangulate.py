@@ -1,6 +1,6 @@
 """Omnistereo triangulation: midpoint of the common perpendicular, batched.
 
-TPU-native replacement for the reference's stereo triangulation (SURVEY.md C8:
+JAX replacement for the reference's stereo triangulation (SURVEY.md C8:
 top-ray x bottom-ray midpoint triangulation with validity gating [P1/P2]).
 Closed-form, fully vmapped -- no per-point loop. The two viewpoints sit on the
 rig's vertical axis (top at origin, bottom at -baseline z), so the vertical

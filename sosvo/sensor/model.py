@@ -1,6 +1,6 @@
 """Pure-JAX omnidirectional camera model (unified catadioptric / GUM).
 
-TPU-native replacement for the reference's sensor-model layer (SURVEY.md C2/C3:
+JAX replacement for the reference's sensor-model layer (SURVEY.md C2/C3:
 `omnistereo/camera_models.py`, the largest module of the reference). The
 reference mount is empty (SURVEY.md SS0), so the model implemented here is the
 published one underlying that code: the unified (sphere) model for a central

@@ -1,6 +1,6 @@
 """Omnistereo rig: the top+bottom view pair on a common vertical axis.
 
-TPU-native replacement for the reference's omnistereo-pair class (SURVEY.md
+JAX replacement for the reference's omnistereo-pair class (SURVEY.md
 C4: a class in `omnistereo/camera_models.py` binding the two GUM view models
 with their common-axis geometry and baseline). Implemented as a NamedTuple
 pytree so a rig can be closed over by jit, vmapped over (e.g. per-sequence

@@ -1,6 +1,6 @@
 """Procedural raw-omni-image renderer: the POV-Ray replacement.
 
-TPU-native replacement for the reference's POV-Ray synthetic render pipeline
+JAX replacement for the reference's POV-Ray synthetic render pipeline
 (SURVEY.md C17 [P1/K]): instead of an external ray tracer, the scene is an
 analytically-intersectable textured room (cylinder wall + floor + ceiling
 with hash-based value-noise texture) ray-cast IN JAX through the exact same

@@ -1,6 +1,6 @@
 """Synthetic omnistereo world with exact ground truth.
 
-TPU-native replacement for the reference's synthetic-data path (SURVEY.md C17:
+JAX replacement for the reference's synthetic-data path (SURVEY.md C17:
 POV-Ray-rendered sequences with exact ground truth [P1/K]). Per SURVEY.md SS4,
 the one genuinely reusable testing idea in the reference is validating against
 synthetic scenes with exact ground truth; this module is the backbone of that

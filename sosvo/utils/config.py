@@ -1,6 +1,6 @@
 """Frozen-dataclass config system, JSON-loadable.
 
-TPU-native replacement for the reference's argparse + in-script constants +
+JAX-side replacement for the reference's argparse + in-script constants +
 pickled model files (SURVEY.md SS5.6). All configs are hashable frozen
 dataclasses so they can be passed to jit as static arguments; the five
 benchmark presets (BASELINE.json:7-11) ship as JSON files in `configs/`.
@@ -28,11 +28,6 @@ class FrontendConfig:
     pano_height: int = 128           # panorama rows (elevation samples)
     pano_width: int = 1024           # panorama cols (azimuth samples)
     descriptor_patch: int = 24       # BRIEF-style sampling patch size
-    use_pallas_match: bool = False   # RETIRED by measurement (r2): the XLA
-                                     # matcher is 15.8/31.6 us at K=512/2048 on
-                                     # v5e vs 22/111 us Pallas -- see BASELINE.md
-                                     # kernel table. Kernel kept (bit-identical)
-                                     # for reference/debug only.
     detector: str = "harris"         # "harris" | "fast" (FAST-9 + Harris rank, ORB-style)
     fast_threshold: float = 0.04     # FAST segment-test margin (intensity units)
     oriented: bool = False           # steered BRIEF (rBRIEF) via IC_Angle
@@ -40,10 +35,9 @@ class FrontendConfig:
     descriptor: str = "brief"        # "brief" (256-bit Hamming) | "sift"
                                      # (128-d float, L2). PERF WARNING: "sift"
                                      # is a PARITY/debug option, not a perf
-                                     # path -- describe is 7.25 ms at K=2048
-                                     # vs 0.41 ms for BRIEF on v5e (17x,
-                                     # BASELINE.md kernel table): its 4x4x8
-                                     # soft-binned histogram is gather-bound.
+                                     # path -- its 4x4x8 soft-binned
+                                     # histogram is gather-bound, an order of
+                                     # magnitude more work than BRIEF.
                                      # ATE on synthetic scenes matches BRIEF.
     match_max_distance_l2: float = 0.7  # L2 acceptance threshold for unit-norm SIFT descriptors
 
@@ -69,9 +63,6 @@ class BAConfig:
     iters: int = 5                   # LM outer iterations
     huber_delta: float = 0.005       # robust kernel width on bearing residuals
     damping_init: float = 1e-3
-    use_pallas_schur: bool = True    # fused Pallas Schur kernel (3.6x vs XLA on
-                                     # v5e, BASELINE.md roofline table;
-                                     # auto-falls back to XLA off-TPU)
 
 
 @dataclass(frozen=True)
@@ -100,10 +91,9 @@ class PipelineConfig:
     min_triangulation_angle: float = 0.004
     max_range: float = 30.0
     max_ray_gap: float = 0.08
-    refine_iters: int = 4            # GN iterations in the bearing refine.
-                                     # Measured on v5e: 45 us/iteration
-                                     # (latency-bound sequential solves), and
-                                     # the ATE sweep over the noise matrix
+    refine_iters: int = 4            # GN iterations in the bearing refine
+                                     # (latency-bound sequential solves).
+                                     # The ATE sweep over the noise matrix
                                      # (0..2 px, 0..15% flips) is flat from
                                      # 3 iterations up (<= 0.25% relative
                                      # delta at 4 vs 6 everywhere) -- the
@@ -115,9 +105,8 @@ class PipelineConfig:
                                      # below lazy_gate_ratio): a lax.cond in
                                      # the scan body skips the whole 2D-2D
                                      # RANSAC on confidently-tracked frames.
-                                     # Measured on v5e (c1, 0.3 px + 2% desc
-                                     # noise): 970 -> 1369 frames/s with
-                                     # IDENTICAL ATE; pose_ok equal to the
+                                     # On c1 (0.3 px + 2% desc noise) the
+                                     # ATE is IDENTICAL; pose_ok equal to the
                                      # eager gate across the 0..1 px noise /
                                      # 0..45% flip matrix and garbage input
                                      # still fails safely (the failure the

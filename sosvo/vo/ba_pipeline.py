@@ -187,8 +187,7 @@ def step_ba_post(
             if ba_fn is not None:
                 return ba_fn(mm)
             mm2, cost = run_window_ba(rig, mm, iters=cfg.ba.iters,
-                                      huber_delta=cfg.ba.huber_delta,
-                                      use_pallas=cfg.ba.use_pallas_schur)
+                                      huber_delta=cfg.ba.huber_delta)
             return mm2, cost
 
         m, cost = jax.lax.cond(m.n_kf >= 2, ba, lambda mm: (mm, jnp.float32(0.0)), m)

@@ -4,8 +4,8 @@ Benchmark config c4 (BASELINE.json:10: "4 sequences in parallel via vmap with
 shared ... kernels, 1 host"). The per-frame step is already pure over pytrees,
 so batching is `jax.vmap` over a leading sequence axis; placing that axis on
 the mesh's "data" axis (SURVEY.md P1-DP) makes XLA partition every kernel --
-matcher, RANSAC, refine -- across chips with zero code changes. On one chip
-the vmap still pays off: the matcher's MXU matmuls and the RANSAC SVD batch
+matcher, RANSAC, refine -- across devices with zero code changes. On one
+device the vmap still pays off: the matcher's matmuls and the RANSAC batch
 grow by the sequence count, improving hardware utilization.
 """
 
@@ -46,9 +46,7 @@ def run_replay_batched(
     The essential gate is DEFERRED out of the vmapped step and applied with
     one any(lane.need) `lax.cond` per scan step (`apply_deferred_gate`): a
     per-lane lazy cond would lower to select under vmap and run the 2D-2D
-    RANSAC for every lane every frame. Measured on v5e (K=512): total
-    batched throughput 853/1697/2018/2120 -> see SCALING.json for the
-    deferred-gate curve.
+    RANSAC for every lane every frame.
     """
     from sosvo.vo.pipeline import apply_deferred_gate, step_full
 
@@ -128,8 +126,7 @@ def run_replay_ba_batched(
         if ba_fn is not None:
             return ba_fn(mm)
         return run_window_ba(rig, mm, iters=cfg.ba.iters,
-                             huber_delta=cfg.ba.huber_delta,
-                             use_pallas=cfg.ba.use_pallas_schur)
+                             huber_delta=cfg.ba.huber_delta)
 
     def body(s, o):
         # Lanes are in lockstep: lane 0's frame counter IS the scalar frame.

@@ -29,11 +29,10 @@ def image_step(
 ) -> tuple[TrackState, StepOutput]:
     """One VO frame from a raw omnidirectional image. Pure; jit/scan-safe."""
     obs = extract_observations(rig, luts, cfg.frontend, image)
-    # Fusion firewall: letting XLA fuse the image-frontend ops with the
-    # geometry step made the combined program ~4.5x slower than the sum of
-    # its parts on TPU (53 ms vs 11.8 + 2.3 ms measured; cross-stage fusion
-    # rematerializes image-sized intermediates inside the matcher/RANSAC
-    # region). The barrier keeps one dispatch but separate schedules.
+    # Fusion firewall: cross-stage fusion of the image-frontend ops with the
+    # geometry step can rematerialize image-sized intermediates inside the
+    # matcher/RANSAC region. The barrier keeps one dispatch but separate
+    # schedules.
     obs = jax.lax.optimization_barrier(obs)
     return step(rig, cfg, state, obs)
 
@@ -72,8 +71,7 @@ def run_replay_images(
     """Replay a raw-image sequence (stacked per-frame outputs).
 
     `split=True` (default): extract observations for all frames with
-    `lax.map`, then scan the geometry core over them -- measured 2.2x faster
-    per frame on TPU than scanning the fused image step (XLA schedules the
+    `lax.map`, then scan the geometry core over them (XLA schedules the
     image region and the geometry region of one fused scan body poorly).
     `split=False` keeps the single fused scan (lower peak memory: no stacked
     observations; use for very long in-device sequences).

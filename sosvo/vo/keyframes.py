@@ -164,13 +164,11 @@ def window_anchor(m: MapState) -> jnp.ndarray:
 
 def run_window_ba(rig: OmnistereoRig, m: MapState, iters: int = 5,
                   axis_name: str | None = None,
-                  huber_delta: float | None = 0.01,
-                  use_pallas: bool = False) -> tuple[MapState, jnp.ndarray]:
+                  huber_delta: float | None = 0.01) -> tuple[MapState, jnp.ndarray]:
     """Refine the window with robust BA; returns (updated map, BA cost)."""
     vps = jnp.stack([viewpoint(rig.top), viewpoint(rig.bottom)])
     win = BAWindow(X=m.kf_X, landmarks=m.lm_pos, rays=m.obs_rays,
                    weights=m.obs_w, viewpoints=vps)
     res = ba_solve(win, iters=iters, axis_name=axis_name,
-                   anchor=window_anchor(m), huber_delta=huber_delta,
-                   use_pallas=use_pallas)
+                   anchor=window_anchor(m), huber_delta=huber_delta)
     return m._replace(kf_X=res.X, lm_pos=res.landmarks), res.cost

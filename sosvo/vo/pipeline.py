@@ -1,6 +1,6 @@
 """The VO state machine: one jitted per-frame step, scanned over frames.
 
-TPU-native replacement for the reference's per-frame driver loop (SURVEY.md
+JAX replacement for the reference's per-frame driver loop (SURVEY.md
 C15 and SS3.1): acquire -> stereo match -> triangulate -> temporal match ->
 RANSAC pose -> refine -> concatenate. In the reference each stage crosses an
 OpenCV/scipy native boundary per frame; here the ENTIRE body is one jitted
@@ -24,7 +24,6 @@ import jax.numpy as jnp
 
 from sosvo.backend.refine import refine_pose_bearings
 from sosvo.frontend.match import column_band_penalty, match
-from sosvo.kernels.match_pallas import match_pallas
 from sosvo.geom.lie import geodesic_angle, mat_inv
 from sosvo.geometry.ransac import ransac_essential, ransac_rigid
 from sosvo.geometry.triangulate import midpoint_triangulate
@@ -42,13 +41,9 @@ def azimuth_of(rays: jnp.ndarray) -> jnp.ndarray:
 
 def _match(cfg: PipelineConfig, desc_a, desc_b, valid_a, valid_b,
            az_a=None, az_b=None, band: float = 0.0):
-    """Matcher dispatch: fused Pallas kernel (TPU) or the XLA reference path.
-
-    Identical semantics either way (tests/test_match_pallas.py); the band
-    constraint is a dense penalty matrix in XLA and fused arithmetic in the
-    kernel. The SIFT float-descriptor option (SURVEY.md C6) routes to the L2
-    matcher -- the Pallas kernel is Hamming-specific, so it only applies to
-    binary descriptors."""
+    """Matcher dispatch: Hamming for binary descriptors, L2 for the SIFT
+    float-descriptor option (SURVEY.md C6). The azimuth band constraint is a
+    dense penalty matrix added to the distance matrix."""
     if cfg.frontend.descriptor == "sift":
         penalty = None
         if band > 0.0:
@@ -59,16 +54,6 @@ def _match(cfg: PipelineConfig, desc_a, desc_b, valid_a, valid_b,
             ratio=cfg.frontend.match_ratio,
             penalty=penalty,
             metric="l2",
-        )
-    if cfg.frontend.use_pallas_match:
-        return match_pallas(
-            desc_a, desc_b, valid_a, valid_b,
-            max_distance=cfg.frontend.match_max_distance,
-            ratio=cfg.frontend.match_ratio,
-            az_a=az_a, az_b=az_b, band=band,
-            # Mosaic kernels need TPU hardware; elsewhere (CPU tests/debug)
-            # fall back to the Pallas interpreter -- same semantics, slow.
-            interpret=jax.default_backend() != "tpu",
         )
     penalty = None
     if band > 0.0:

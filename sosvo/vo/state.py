@@ -2,8 +2,8 @@
 
 The reference keeps VO state in driver-script locals (SURVEY.md C15); here it
 is an explicit fixed-shape pytree so the whole per-frame step jits, scans over
-frames, vmaps over sequences (BASELINE.json:10), and checkpoints via orbax
-(SURVEY.md SS5.4).
+frames, vmaps over sequences (BASELINE.json:10), and checkpoints as .npz
+files (`sosvo/utils/checkpoint.py`, SURVEY.md SS5.4).
 """
 
 from __future__ import annotations

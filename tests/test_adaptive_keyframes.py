@@ -46,8 +46,7 @@ def test_adaptive_fewer_keyframes_equal_or_better_ate():
                            pixel_noise=0.3, desc_flip_prob=0.02)
     base = dict(frontend=FrontendConfig(max_features=K),
                 ransac=RansacConfig(n_hyps=256),
-                ba=BAConfig(window=4, max_landmarks=512, iters=3,
-                            use_pallas_schur=False))
+                ba=BAConfig(window=4, max_landmarks=512, iters=3))
     cfg_stride = PipelineConfig(**base, keyframe_every=3)
     cfg_adapt = PipelineConfig(**base, keyframe_mode="adaptive",
                                kf_trans_thresh=0.15, kf_rot_thresh=0.15,
@@ -72,8 +71,7 @@ def test_adaptive_max_gap_forces_keyframes_when_static():
                            pixel_noise=0.3, desc_flip_prob=0.02)
     cfg = PipelineConfig(frontend=FrontendConfig(max_features=K),
                          ransac=RansacConfig(n_hyps=256),
-                         ba=BAConfig(window=4, max_landmarks=512, iters=3,
-                                     use_pallas_schur=False),
+                         ba=BAConfig(window=4, max_landmarks=512, iters=3),
                          keyframe_mode="adaptive", kf_max_gap=8)
     _, n_kf = _run(cfg, scene, obs)
     expected = 1 + (F - 1) // 8
@@ -95,8 +93,7 @@ def test_pgo_optimizes_the_scans_adaptive_keyframe_set(monkeypatch):
                            pixel_noise=0.3, desc_flip_prob=0.02)
     cfg = PipelineConfig(frontend=FrontendConfig(max_features=K),
                          ransac=RansacConfig(n_hyps=256),
-                         ba=BAConfig(window=4, max_landmarks=512, iters=3,
-                                     use_pallas_schur=False),
+                         ba=BAConfig(window=4, max_landmarks=512, iters=3),
                          keyframe_mode="adaptive",
                          kf_trans_thresh=0.15, kf_rot_thresh=0.15,
                          kf_max_gap=8)

@@ -91,16 +91,6 @@ def test_ba_gauge_anchor_fixed():
     assert float(jnp.max(jnp.abs(res.X[0] - win.X[0]))) < 1e-6
 
 
-def test_ba_solve_pallas_schur_matches():
-    """ba_solve with the fused Pallas Schur path == XLA path (interpret mode)."""
-    win, X_gt, lms = _make_window(jax.random.PRNGKey(5), pose_noise=0.02,
-                                  lm_noise=0.03, pixel_like_noise=1e-3)
-    res_x = ba_solve(win, iters=5)
-    res_p = ba_solve(win, iters=5, use_pallas=True)
-    assert float(jnp.max(jnp.abs(res_x.X - res_p.X))) < 1e-4
-    assert abs(float(res_x.cost) - float(res_p.cost)) < 1e-6 + 1e-3 * float(res_x.cost)
-
-
 def test_solve6x6_spd_matches_linalg():
     from sosvo.backend.schur import inv6x6_spd, solve6x6_spd
 

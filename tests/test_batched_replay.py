@@ -71,8 +71,7 @@ def _ba_problem():
     rig = default_rig()
     cfg = PipelineConfig(frontend=FrontendConfig(max_features=K),
                          ransac=RansacConfig(n_hyps=256),
-                         ba=BAConfig(window=4, max_landmarks=512, iters=3,
-                                     use_pallas_schur=False),
+                         ba=BAConfig(window=4, max_landmarks=512, iters=3),
                          keyframe_every=3)
     keys = jax.random.split(jax.random.PRNGKey(0), S)
     scenes = [make_scene(k, n_frames=F, n_landmarks=2048) for k in keys]

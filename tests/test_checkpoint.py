@@ -5,6 +5,7 @@ the CLI's --fault-inject in test_cli_fault_resume."""
 import subprocess
 from pathlib import Path
 import sys
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,6 +45,38 @@ def test_checkpoint_roundtrip_resumes_exactly(tmp_path):
 
     _, outs_tail = replay(restored, jax.tree.map(lambda x: x[6:], obs))
     assert float(jnp.max(jnp.abs(outs_tail.vo.T_world - outs_full.vo.T_world[6:]))) == 0.0
+
+
+class _Leaves(NamedTuple):
+    z: jnp.ndarray
+    a: jnp.ndarray
+
+
+def test_checkpoint_format_keeps_leaf_order_and_dtypes(tmp_path):
+    """Positional leaf keys: field order never follows key sorting, and every
+    dtype (bool masks, int counters, uint32 descriptors and keys) survives."""
+    state = {"b": _Leaves(z=jnp.arange(3, dtype=jnp.int32),
+                          a=jnp.ones((2, 2), bool)),
+             "a": (jnp.full((4,), 7, jnp.uint32), jnp.float32(2.5))}
+    save_state(tmp_path, 3, state)
+    save_state(tmp_path, 11, state)
+    assert latest_step(tmp_path) == 11
+    template = jax.tree.map(jnp.zeros_like, state)
+    restored = restore_state(tmp_path, 11, template)
+    assert jax.tree.structure(restored) == jax.tree.structure(state)
+    for got, want in zip(jax.tree.leaves(restored), jax.tree.leaves(state)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(jnp.all(got == want))
+
+
+def test_cli_imports_no_orbax():
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, sosvo.cli, sosvo.utils.checkpoint; "
+         "print(sorted(m for m in sys.modules if m.startswith('orbax')))"],
+        capture_output=True, text=True, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
 
 
 def _tiny_cfg(tmp_path):
@@ -116,8 +149,7 @@ def test_cli_batched_runs_both_modes(tmp_path):
         "pipeline": {
             "frontend": {"max_features": 128},
             "ransac": {"n_hyps": 128},
-            "ba": {"window": 3, "max_landmarks": 256, "iters": 2,
-                   "use_pallas_schur": False},
+            "ba": {"window": 3, "max_landmarks": 256, "iters": 2},
             "dist": {"data_parallel": 2},
             "mode": "observations",
             "keyframe_every": 3,
@@ -129,10 +161,14 @@ def test_cli_batched_runs_both_modes(tmp_path):
         out = tmp_path / f"out_{mode}"
         r = subprocess.run(
             [sys.executable, "-m", "sosvo.cli", "--config", str(p),
-             "--platform", "cpu", "--mode", mode, "--out", str(out)],
+             "--platform", "cpu", "--mode", mode, "--out", str(out),
+             "--verify-sharded"],
             capture_output=True, text=True, cwd=str(ROOT))
         assert r.returncode == 0, (mode, r.stderr[-2000:])
         rep = json.loads((out / "report.json").read_text())
         assert rep["mode"] == f"batched-{mode}"
         assert rep["n_sequences"] == 2
+        assert rep["mesh"] == {"data": 2}  # conftest's 8 virtual devices
         assert all(a < 0.05 for a in rep["ate_per_sequence"]), rep
+        # The sequence-sharded replay reproduces the one-device replay.
+        assert rep["sharded_vs_single_max_pose_diff"] < 1e-5, rep

@@ -1,5 +1,5 @@
 """ORB-parity frontend options: FAST-9 detector, IC_Angle orientation,
-steered (rotated) BRIEF. These are the TPU-native equivalents of the
+steered (rotated) BRIEF. These are the JAX equivalents of the
 reference's `cv2.ORB_create` default configuration (SURVEY.md C6)."""
 
 import jax

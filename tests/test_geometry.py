@@ -4,6 +4,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from sosvo.frontend import match as fm
 from sosvo.geom.lie import geodesic_angle, mat_inv, se3_exp, so3_exp, transform_points
@@ -22,10 +23,12 @@ from sosvo.synth.scene import make_scene, observe_frame
 
 # ---------------------------------------------------------------- matching
 
-def test_hamming_mxu_equals_xor():
+@pytest.mark.parametrize("ka,kb", [(96, 128), (2048, 2048)])
+def test_hamming_mxu_equals_xor(ka, kb):
+    """bf16 +/-1 operands with f32 accumulation are exact for 256 bits."""
     key = jax.random.PRNGKey(0)
-    a = jax.random.bits(key, (96, 8), dtype=jnp.uint32)
-    b = jax.random.bits(jax.random.PRNGKey(1), (128, 8), dtype=jnp.uint32)
+    a = jax.random.bits(key, (ka, 8), dtype=jnp.uint32)
+    b = jax.random.bits(jax.random.PRNGKey(1), (kb, 8), dtype=jnp.uint32)
     d1 = fm.hamming_matrix_xor(a, b)
     d2 = fm.hamming_matrix_mxu(a, b)
     np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))

@@ -79,7 +79,7 @@ def test_live_ba_matches_replay_ba(tmp_path):
                                 descriptor_patch=16),
         ransac=RansacConfig(rigid_angle_threshold=0.02, essential_threshold=0.01,
                             min_inliers=8),
-        ba=BAConfig(window=4, max_landmarks=512, iters=3, use_pallas_schur=False),
+        ba=BAConfig(window=4, max_landmarks=512, iters=3),
         keyframe_every=3,
     )
 

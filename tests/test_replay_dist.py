@@ -19,7 +19,7 @@ def test_sharded_replay_matches_single_device():
     cfg = PipelineConfig(
         frontend=FrontendConfig(max_features=K),
         ransac=RansacConfig(n_hyps=128),
-        ba=BAConfig(window=3, max_landmarks=L, iters=3, use_pallas_schur=False),
+        ba=BAConfig(window=3, max_landmarks=L, iters=3),
         keyframe_every=3,
     )
     scene = make_scene(jax.random.PRNGKey(0), n_frames=F, n_landmarks=2048)

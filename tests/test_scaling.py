@@ -1,13 +1,12 @@
 """Scaling-harness floor (VERDICT r1 item 2): sharded batched replay on the
 virtual CPU mesh must not crater total throughput.
 
-The build host has 2 vCPUs, so an 8-device mesh oversubscribes ~4x and
-per-device "efficiency" is meaningless here; the invariant that IS meaningful
-on this host is that sharding 8 sequences over 8 virtual devices keeps total
-throughput within a constant factor of the 1-device run (i.e. the sharded
-program adds no serialization/dispatch pathology). Real >= 80% 1-chip ->
-slice efficiency is measured on real hardware via scripts/scaling_report.py
-(artifact: SCALING.json).
+An 8-device virtual mesh oversubscribes a small CPU host, so per-device
+"efficiency" is meaningless here; the invariant that IS meaningful is that
+sharding 8 sequences over 8 virtual devices keeps total throughput within a
+constant factor of the 1-device run (i.e. the sharded program adds no
+serialization/dispatch pathology). The >= 80% 1 -> 4 card efficiency is
+measured on the GPUs (`python -m sosvo.dist.scaling` there).
 """
 
 from sosvo.dist.scaling import measure_scaling

@@ -1,9 +1,9 @@
 """SIFT-parity frontend option: 128-d float descriptor + L2 MXU matcher.
 
 The reference exposes SIFT as an alternative to ORB through OpenCV
-(SURVEY.md C6 "ORB default; SIFT/AKAZE options"); this is the TPU-native
+(SURVEY.md C6 "ORB default; SIFT/AKAZE options"); this is the JAX
 equivalent — one fused 18×18 gather per keypoint, trilinear orientation
-histograms, and Gram-trick L2 matching on the MXU.
+histograms, and Gram-trick L2 matching as one matmul.
 """
 
 import jax
