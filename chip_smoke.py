@@ -108,67 +108,13 @@ def median_call_s(f, *args, n: int = 100) -> float:
     return statistics.median(ts)
 
 
-def schur_reference_f64(H_cc, H_cl, H_ll, b_c, b_l):
-    """Dense (6W, 6W) Schur complement of the landmark blocks, in float64."""
-    import numpy as np
-
-    H_cc, H_cl, H_ll, b_c, b_l = (np.asarray(a, np.float64)
-                                  for a in (H_cc, H_cl, H_ll, b_c, b_l))
-    W, L = H_cl.shape[:2]
-    B = H_cl.transpose(1, 0, 2, 3).reshape(L, 6 * W, 3)   # per-landmark coupling
-    Y = B @ np.linalg.inv(H_ll)                           # (L, 6W, 3)
-    S = np.zeros((6 * W, 6 * W))
-    for w in range(W):
-        S[6 * w:6 * w + 6, 6 * w:6 * w + 6] = H_cc[w]
-    S -= np.einsum("lik,ljk->ij", Y, B)
-    b = b_c.reshape(6 * W) - np.einsum("lik,lk->i", Y, b_l)
-    return S, b
-
-
-def ba_window(W: int, L: int, seed: int):
-    """A noisy, perturbed W-keyframe window of L two-view landmarks."""
-    import jax
-    import jax.numpy as jnp
-
-    from sosvo.backend.ba import BAWindow
-    from sosvo.geom.lie import mat_inv, se3_exp, transform_points
-    from sosvo.sensor.model import viewpoint
-    from sosvo.sensor.rig import default_rig
-    from sosvo.synth.scene import make_scene
-
-    rig = default_rig()
-    key = jax.random.PRNGKey(seed)
-    scene = make_scene(key, n_frames=W, n_landmarks=max(L, 4096))
-    lms = scene.landmarks[:L]
-    X = jax.vmap(mat_inv)(scene.poses)
-    vps = jnp.stack([viewpoint(rig.top), viewpoint(rig.bottom)])
-    d = jax.vmap(lambda Xw: transform_points(Xw, lms))(X)[:, :, None] - vps
-    k1, k2, k3 = jax.random.split(key, 3)
-    rays = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    rays = rays + 1e-3 * jax.random.normal(k1, rays.shape)
-    rays = rays / jnp.linalg.norm(rays, axis=-1, keepdims=True)
-    xi = (0.01 * jax.random.normal(k2, (W, 6))).at[0].set(0.0)
-    return BAWindow(X=jnp.einsum("wij,wjk->wik", se3_exp(xi), X),
-                    landmarks=lms + 0.02 * jax.random.normal(k3, lms.shape),
-                    rays=rays, weights=jnp.ones((W, L, 2), jnp.float32),
-                    viewpoints=vps)
-
-
-# Tolerance on the Schur reduction against float64: the inputs are float32
-# and each entry of S sums 3L products over up to 4096 landmarks, so
-# float32 rounding gives a relative error of order 1e-6 here. TF32 inputs
-# (10-bit mantissa) would give about 1e-3. 1e-4 passes the first and catches
-# the second, i.e. a lost `highest` matmul precision.
-SCHUR_RTOL = 1e-4
-
-
 def phase_kernels() -> str:
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from sosvo.backend.ba import build_blocks
-    from sosvo.backend.schur import inv3x3, reduce_camera_system
+    from sosvo.backend.schur_reference import (SCHUR_RTOL_B, SCHUR_RTOL_S,
+                                               schur_rel_errors)
     from sosvo.frontend import match as fm
 
     parts = []
@@ -185,18 +131,9 @@ def phase_kernels() -> str:
         t = median_call_s(f, a[:k], b[:k], va)
         parts.append(f"match K={k} {t * 1e6:.1f} us/call")
 
-    lam = 1e-3
     for W, L in ((5, 1024), (8, 4096)):
-        H_cc, H_cl, H_ll, b_c, b_l, _ = build_blocks(ba_window(W, L, seed=W))
-        H_cc = H_cc + lam * jnp.eye(6)
-        H_ll = H_ll + lam * jnp.eye(3)
-        S, b_red = jax.jit(lambda *x: reduce_camera_system(
-            x[0], x[1], inv3x3(x[2]), x[3], x[4]))(H_cc, H_cl, H_ll, b_c, b_l)
-        S = np.asarray(S).transpose(0, 2, 1, 3).reshape(6 * W, 6 * W)
-        S_ref, b_ref = schur_reference_f64(H_cc, H_cl, H_ll, b_c, b_l)
-        es = np.max(np.abs(S - S_ref)) / np.max(np.abs(S_ref))
-        eb = np.max(np.abs(np.asarray(b_red).reshape(-1) - b_ref)) / np.max(np.abs(b_ref))
-        check(es < SCHUR_RTOL and eb < SCHUR_RTOL,
+        es, eb = schur_rel_errors(W, L, seed=W)
+        check(es < SCHUR_RTOL_S and eb < SCHUR_RTOL_B,
               f"Schur (W={W}, L={L}) vs float64: rel err S {es:.2e}, b {eb:.2e}")
         parts.append(f"schur W={W} L={L} rel err S {es:.1e} b {eb:.1e}")
     return "; ".join(parts)
@@ -253,6 +190,20 @@ def one_card(out: Path, clock: CompileClock) -> None:
           f"{ {k: round(v, 1) for k, v in compile_s.items()} }", flush=True)
 
 
+# Limit on the pose difference between c4 sharded over 4 cards (batch 1 per
+# card) and the 4 sequences batched on one card. On one H100, batch 4 and
+# 4 x batch 1 of the same inputs differ by 1.4e-6 to 2.9e-3 over 40 to 100
+# frames (scripts/batch_drift.py, 3 seeds x 3 sizes; 6.5e-4 on c4's own
+# inputs; this check read 6.5e-4 in one four-card run and 4.2e-6 in
+# another), while each program repeats itself bit for bit: the two batch
+# sizes compile to kernels that round differently, and RANSAC's inlier
+# decisions amplify the last bits. The limit sits above those readings, so it fails
+# only a coupling across the sequence axis that moves a pose by more than
+# 5 mm; the tight checks of the batched path against each sequence alone
+# are the CPU tests (tests/test_batched_replay.py).
+C4_BATCH_DRIFT_LIMIT = 5e-3
+
+
 def four_cards(out: Path, clock: CompileClock) -> None:
     import __graft_entry__
 
@@ -269,9 +220,14 @@ def four_cards(out: Path, clock: CompileClock) -> None:
         r = run_cli(out / "c4", "--config", config("c4_batched_replay"),
                     "--mode", "ba", "--verify-sharded", "--ckpt-every", "100")
         check(r["mesh"] == {"data": 4}, f"c4 mesh {r['mesh']}")
+        d_share = r["sharded_vs_per_device_share_max_pose_diff"]
+        check(d_share < 1e-5,
+              f"c4 sharded vs each card's share on one card: pose diff {d_share}")
         d = r["sharded_vs_single_max_pose_diff"]
-        check(d < 1e-5, f"c4 sharded vs one-card (per-card share) pose diff {d}")
-        print(f"  mesh {r['mesh']}; sharded vs single max pose diff {d:.2e}; "
+        check(d < C4_BATCH_DRIFT_LIMIT,
+              f"c4 sharded vs all 4 sequences batched on one card: pose diff {d}")
+        print(f"  mesh {r['mesh']}; max pose diff vs one card: batched {d!r}, "
+              f"per-card share {d_share!r}; "
               f"ATE per sequence {r['ate_per_sequence']} m")
     with phase(3, "dryrun_multichip", clock, compile_s):
         __graft_entry__.dryrun_multichip(4)

@@ -197,6 +197,34 @@ def run_replay_ba_batched(
     return final, jax.tree.map(lambda x: jnp.swapaxes(x, 0, 1), outs)     # (S, F, ...)
 
 
+def synthetic_batched_inputs(rig: OmnistereoRig, cfg: PipelineConfig,
+                             n_seq: int, n_frames: int, n_landmarks: int, *,
+                             pixel_noise: float, desc_flip_prob: float,
+                             ba: bool, seed: int = 0):
+    """`n_seq` synthetic sequences and their stacked initial states.
+
+    Returns (states, obs, gt_poses) with a leading sequence axis; `ba`
+    picks BA states (`run_replay_ba_batched`) over track states
+    (`run_replay_batched`). Seed 0 gives the inputs of config c4.
+    """
+    from sosvo.synth.scene import make_scene, observe_sequence
+
+    K = cfg.frontend.max_features
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_seq)
+    scenes = [make_scene(k, n_frames=n_frames, n_landmarks=n_landmarks)
+              for k in keys]
+    obs = jax.tree.map(
+        lambda *xs: jnp.stack(xs),
+        *[observe_sequence(rig, sc, K, k, pixel_noise=pixel_noise,
+                           desc_flip_prob=desc_flip_prob)
+          for sc, k in zip(scenes, keys)])
+    gt = jnp.stack([sc.poses for sc in scenes])   # (S, F, 4, 4)
+    key = jax.random.PRNGKey(seed + 2)
+    states = (init_batched_ba_states(n_seq, cfg, key, T0=gt[:, 0]) if ba
+              else init_batched_states(n_seq, K, key, T0=gt[:, 0]))
+    return states, obs, gt
+
+
 def shard_batched_inputs(mesh: Mesh, states: TrackState, obs_seqs: FrameObservations):
     """Place the sequence axis on the "data" mesh axis, everything else replicated."""
 

@@ -170,5 +170,7 @@ def test_cli_batched_runs_both_modes(tmp_path):
         assert rep["n_sequences"] == 2
         assert rep["mesh"] == {"data": 2}  # conftest's 8 virtual devices
         assert all(a < 0.05 for a in rep["ate_per_sequence"]), rep
-        # The sequence-sharded replay reproduces the one-device replay.
+        # The sequence-sharded replay reproduces both one-device replays:
+        # both sequences batched, and each device's share alone.
         assert rep["sharded_vs_single_max_pose_diff"] < 1e-5, rep
+        assert rep["sharded_vs_per_device_share_max_pose_diff"] < 1e-5, rep

@@ -1,4 +1,4 @@
-"""Smoke tests: plot outputs render to files (C19)."""
+"""Smoke tests: plot outputs render to files (C19); alias package surface."""
 
 import numpy as np
 
@@ -18,3 +18,12 @@ def test_plot_trajectories_writes_png(tmp_path):
     plot_frame_stats(rows, p2)
     assert p2.stat().st_size > 1000
 
+
+def test_alias_package_surface():
+    import vo_single_camera_sos_tpu as vst
+
+    assert vst.__version__
+    # The alias exposes every subsystem of the canonical package.
+    for sub in ("backend", "frontend", "geometry", "sensor",
+                "vo", "dist", "synth", "eval", "utils", "data", "calib"):
+        assert hasattr(vst, sub), sub

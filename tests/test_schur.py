@@ -8,9 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chip_smoke import SCHUR_RTOL, ba_window, schur_reference_f64
 from sosvo.backend.ba import build_blocks
 from sosvo.backend.schur import inv3x3, reduce_camera_system
+from sosvo.backend.schur_reference import (SCHUR_RTOL_B, SCHUR_RTOL_S,
+                                           ba_window, schur_rel_errors)
 
 LAM = 1e-3
 
@@ -24,19 +25,10 @@ def _reduce(H_cc, H_cl, H_ll, b_c, b_l, axis_name=None):
     return reduce_camera_system(H_cc, H_cl, inv3x3(H_ll), b_c, b_l, axis_name)
 
 
-def _flat(S):
-    W = S.shape[0]
-    return np.asarray(S).transpose(0, 2, 1, 3).reshape(6 * W, 6 * W)
-
-
 @pytest.mark.parametrize("W,L", [(5, 512), (8, 1024)])
 def test_reduce_camera_system_matches_float64(W, L):
-    blocks = _damped_blocks(ba_window(W, L, seed=W))
-    S, b_red = jax.jit(_reduce)(*blocks)
-    S_ref, b_ref = schur_reference_f64(*blocks)
-    assert np.max(np.abs(_flat(S) - S_ref)) / np.max(np.abs(S_ref)) < SCHUR_RTOL
-    assert (np.max(np.abs(np.asarray(b_red).reshape(-1) - b_ref))
-            / np.max(np.abs(b_ref))) < SCHUR_RTOL
+    es, eb = schur_rel_errors(W, L, seed=W)
+    assert es < SCHUR_RTOL_S and eb < SCHUR_RTOL_B, (es, eb)
 
 
 def test_reduce_camera_system_sharded_equals_single(devices8):

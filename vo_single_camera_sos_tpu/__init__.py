@@ -17,7 +17,6 @@ from sosvo import (  # noqa: F401
     frontend,
     geom,
     geometry,
-    kernels,
     sensor,
     synth,
     utils,
